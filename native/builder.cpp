@@ -2,7 +2,7 @@
 //
 // Host-side replacement for the build phase of Embree
 // (/root/reference/src/raytracer/raytracer_impl.cc rtcCommitScene) and the
-// nanort SAH builder (/root/reference/src/nanort.h:1887): the TPU runtime
+// nanort SAH builder (/root/reference/src/nanort.h:1887): the renderer
 // keeps scene COMMIT on the host CPU where pointerful recursion is cheap,
 // and ships only flat arrays to the device. The Python builders in
 // pbrlab_tpu/geometry/bvh.py are the reference implementation; this C++

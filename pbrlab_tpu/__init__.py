@@ -1,6 +1,6 @@
-"""pbrlab_tpu — TPU-native differentiable wavefront path tracer.
+"""pbrlab_tpu — differentiable wavefront path tracer in JAX.
 
-A from-scratch JAX/XLA/Pallas re-architecture of lighttransport/pbrlab:
+A from-scratch JAX/XLA re-architecture of lighttransport/pbrlab:
 wavefront path tracing with threaded-BVH intersection, Cycles-compatible
 Principled BSDF, random-walk SSS, Principled Hair BSDF, NEE/MIS area lights,
 textures, and multi-chip sharding. See SURVEY.md for the reference map.

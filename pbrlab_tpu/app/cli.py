@@ -73,6 +73,10 @@ def main(argv=None):
 
     import jax
 
+    from ..utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
+
     from ..render.film import save_png
     from ..render.integrator import auto_k_volume, render
     from ..scene.scene import scene_to_device

@@ -1,11 +1,11 @@
 """Interactive preview server: the reference GUI re-imagined for a
-headless TPU host.
+headless accelerator host.
 
 The reference runs three threads — a progressive render loop applying
 queued edits between passes, a buffer-update thread converting the
 accumulator to sRGB, and a GLFW/ImGui window with a per-parameter material
 editor (/root/reference/pc/pbrlab-gui.cc:129-274, pc/glfw-window.cc:651-980,
-EditQueue pc/pc-common.h:14-81). A TPU host has no GL surface, so the
+EditQueue pc/pc-common.h:14-81). A headless host has no GL surface, so the
 equivalent here is an HTTP server any browser can open:
 
 * GET  /            — live view: the running average as PNG, auto-refreshed,
@@ -27,7 +27,6 @@ accumulator (glfw-window.cc:621-625 RequestRerender semantics).
 """
 from __future__ import annotations
 
-import io
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -110,16 +109,13 @@ class PreviewServer:
 
     # -- frame encoding (buffer-updater thread analogue) ------------------
     def _update_png(self, linear_img: np.ndarray) -> None:
-        from ..io.image import linear_to_srgb
+        from ..io.image import encode_png, linear_to_srgb
 
         img8 = (np.clip(linear_to_srgb(np.clip(linear_img, 0.0, 1.0)), 0, 1)
                 * 255.0 + 0.5).astype(np.uint8)
-        from PIL import Image
-
-        buf = io.BytesIO()
-        Image.fromarray(img8).save(buf, "PNG")
+        png = encode_png(img8)
         with self._lock:
-            self._png = buf.getvalue()
+            self._png = png
 
     def materials_dict(self) -> Dict:
         mats = self.r.scene["materials"]

@@ -1,10 +1,10 @@
 """Vector math on JAX arrays with a trailing xyz axis.
 
-TPU-native replacement for the reference scalar float3 kit
+Vectorized replacement for the reference scalar float3 kit
 (/root/reference/src/type.h:8-83, /root/reference/src/pbrlab_math.h:20-55,
 /root/reference/src/pbrlab-util.h). All functions are shape-polymorphic: they
 operate on arrays of shape [..., 3] (or scalars broadcast against them), so a
-whole wavefront of lanes is processed per call on the VPU.
+whole wavefront of lanes is processed per call.
 """
 from __future__ import annotations
 
@@ -125,11 +125,10 @@ def fresnel_dielectric_cos(cos_i, eta):
 def small_table_fetch(table, idx, max_rows: int = 32):
     """Per-lane row fetch [R, C][idx] that sidesteps XLA's gather.
 
-    TPU gathers cost ~15 ns per ROW regardless of width; for the small
-    id-indexed tables of a scene (materials, emissive faces) a masked
-    select-sum is R*C vectorized ops — orders of magnitude cheaper at
-    wavefront widths. Falls back to a real gather past max_rows. idx is
-    assumed pre-clipped to [0, R).
+    For the small id-indexed tables of a scene (materials, emissive faces)
+    a masked select over the R rows is R*C elementwise ops per lane and no
+    gather. Falls back to a real gather past max_rows. idx is assumed
+    pre-clipped to [0, R).
     """
     r = table.shape[0]
     if r == 0 or r > max_rows:

@@ -3,7 +3,7 @@
 Reference: Pixar BranchlessONB and the global<->shading-local rotations in
 /root/reference/src/shader/shader-utils.h:44-114. Instead of 4x4 matrices we
 keep the three basis vectors and transform with dot products (3 fused
-multiply-adds per component on the VPU).
+multiply-adds per component).
 """
 from __future__ import annotations
 

@@ -2,15 +2,15 @@
 
 The reference uses stateful 64-bit PCG32, one generator per render *thread*
 seeded (thread_id, 1234567890) (/root/reference/src/random/rng.h:9-69,
-src/render.cc:215) — which makes its images thread-schedule dependent. Our
-TPU-native design instead carries one 32-bit PCG state *per wavefront lane*,
+src/render.cc:215) — which makes its images thread-schedule dependent. This
+design instead carries one 32-bit PCG state *per wavefront lane*,
 deterministically seeded from (pixel_id, sample_id, stream seed): the same
 seed reproduces bit-exact images across any sharding layout, which is what
 gradient replay requires.
 
 The generator is the 32-bit PCG-RXS-M-XS-style hash of Jarzynski & Olano,
 "Hash Functions for GPU Rendering" (JCGT 2020) — the standard per-lane PCG
-for GPU/TPU renderers. Draw output uses the same mantissa bit-trick as the
+for GPU renderers. Draw output uses the same mantissa bit-trick as the
 reference Draw() (rng.h:52-65): (word >> 9) | 0x3f800000 reinterpreted as
 float minus 1.0 -> uniform [0, 1).
 

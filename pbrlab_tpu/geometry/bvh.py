@@ -2,13 +2,14 @@
 
 Replaces Embree4's BVH build (/root/reference/src/raytracer/raytracer_impl.cc)
 and the bundled nanort SAH builder (/root/reference/src/nanort.h:1887) with a
-numpy binned-SAH build whose output is designed for the TPU traversal kernel:
+numpy binned-SAH build whose output is designed for a lock-step wavefront
+traversal in plain JAX (ops.intersect):
 
 * nodes are emitted in depth-first order and THREADED: every node stores a
   `skip` index (the next depth-first node whose subtree is disjoint). The
   device traversal then needs only a single node pointer per ray lane —
   "AABB hit -> node+1, miss -> skip[node]" — no per-lane stack, which keeps
-  the wavefront loop regular for the VPU;
+  the wavefront loop regular;
 * leaves hold a fixed-size window [prim_offset, prim_offset + LEAF_SIZE) into
   a reordered primitive array (padded with -1), so leaf tests are a fixed
   vectorized gather of LEAF_SIZE triangles per lane;
@@ -23,6 +24,7 @@ import numpy as np
 
 LEAF_SIZE = 4
 N_BINS = 16
+SLOT_CLUSTER = 32  # faces per leaf of the slot-order build (build_slot_order)
 
 
 @dataclasses.dataclass
@@ -171,3 +173,67 @@ def curve_bounds(curve_pts):
     p = curve_pts[..., :3]
     r = curve_pts[..., 3].max(axis=-1, keepdims=True)
     return p.min(axis=1) - r, p.max(axis=1) + r
+
+
+def node_arrays(bvh: BVH):
+    """Child-linked view of a threaded BVH: (node_aabb [6, Nn] lo|hi,
+    node_meta [2, Nn]) with node_meta[0] = right-child index for internal
+    nodes / -1 for leaves and node_meta[1] = leaf slot base / -1.
+
+    Depth-first emission puts the left child at n + 1, and the right child
+    is the next disjoint subtree after it: skip[n + 1]. Validated here so
+    the native builder cannot silently break the derivation.
+    """
+    nn = bvh.num_nodes
+    internal = np.nonzero(bvh.prim_offset < 0)[0]
+    right = np.full((nn,), -1, np.int32)
+    if internal.size:
+        right[internal] = bvh.skip[internal + 1]
+        assert (right[internal] > internal + 1).all()
+        assert (bvh.skip[right[internal]] == bvh.skip[internal]).all()
+    node_meta = np.stack([right, bvh.prim_offset]).astype(np.int32)
+    node_aabb = np.concatenate([bvh.aabb_min.T, bvh.aabb_max.T]).astype(
+        np.float32)
+    return node_aabb, node_meta
+
+
+def build_slot_order(tri_v0: np.ndarray, tri_e1: np.ndarray,
+                     tri_e2: np.ndarray, cluster: int = SLOT_CLUSTER):
+    """The scene's canonical face slot order: a binned-SAH build with
+    `cluster`-face leaves whose windows, in depth-first order, become the
+    slots (padding slots are -1). Spatially adjacent faces get adjacent
+    ids, and the node arrays feed the integrator's compaction signature
+    (scene._signature_cut).
+
+    Returns (order [S] source face ids with -1 padding, node_aabb [6, Nn],
+    node_meta [2, Nn]); see node_arrays for the node layout.
+    """
+    if tri_v0.shape[0] == 0:
+        node_aabb = np.zeros((6, 1), np.float32)
+        node_aabb[0:3] = 1e30
+        node_aabb[3:6] = -1e30
+        node_meta = np.asarray([[-1], [0]], np.int32)
+        return np.full((cluster,), -1, np.int32), node_aabb, node_meta
+    bmin, bmax = triangle_bounds(tri_v0, tri_e1, tri_e2)
+    bvh = build_bvh(bmin, bmax, leaf_size=cluster)
+    node_aabb, node_meta = node_arrays(bvh)
+    return bvh.prim_ids.astype(np.int32), node_aabb, node_meta
+
+
+def morton_order(points: np.ndarray) -> np.ndarray:
+    """Stable Morton (Z-curve) order of [n, 3] points, 10 bits per axis
+    over the points' own bounds."""
+    lo = points.min(axis=0)
+    ext = np.maximum(points.max(axis=0) - lo, 1e-12)
+    q = np.clip(((points - lo) / ext * 1023.0).astype(np.uint64), 0, 1023)
+
+    def spread(x):
+        x = (x | (x << 16)) & np.uint64(0x30000FF)
+        x = (x | (x << 8)) & np.uint64(0x300F00F)
+        x = (x | (x << 4)) & np.uint64(0x30C30C3)
+        x = (x | (x << 2)) & np.uint64(0x9249249)
+        return x
+
+    keys = spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1)) \
+        | (spread(q[:, 2]) << np.uint64(2))
+    return np.argsort(keys, kind="stable").astype(np.int32)

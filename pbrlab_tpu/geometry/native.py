@@ -1,9 +1,10 @@
 """ctypes bindings to the native scene-build kernels (native/builder.cpp).
 
-Compiled lazily with the system compiler on first use; every entry point
-falls back to the numpy implementations in geometry.bvh /
-ops.pallas.dense when the toolchain or the build is unavailable, so the
-native path is a pure accelerator, never a requirement.
+Compiled lazily with the system compiler on first use, next to its source
+(the built library is not committed); every entry point falls back to the
+numpy implementations in geometry.bvh when the toolchain or the build is
+unavailable, so the native path is a pure accelerator, never a
+requirement.
 """
 from __future__ import annotations
 
@@ -33,10 +34,14 @@ def _lib() -> Optional[ctypes.CDLL]:
         try:
             if (not os.path.exists(so_path)
                     or os.path.getmtime(so_path) < os.path.getmtime(_SRC)):
+                # build beside the target and rename: processes that build
+                # at once (test workers) never load a half-written library
+                tmp = f"{so_path}.{os.getpid()}.tmp"
                 subprocess.run(
                     ["c++", "-O3", "-march=native", "-shared", "-fPIC",
-                     _SRC, "-o", so_path],
+                     _SRC, "-o", tmp],
                     check=True, capture_output=True, timeout=120)
+                os.replace(tmp, so_path)
             lib = ctypes.CDLL(so_path)
             lib.pbrlab_morton_order.argtypes = [
                 ctypes.POINTER(ctypes.c_float), ctypes.c_int64,

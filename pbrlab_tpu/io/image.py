@@ -2,13 +2,16 @@
 
 Reference: /root/reference/src/io/image-io.cc (stb_image/tinyexr load,
 PNG save with x256 clamp) and image-utils.cc:8-97 (piecewise sRGB<->linear).
-LDR formats go through Pillow; EXR/HDR through imageio when available
-(tinyexr equivalent), gated gracefully otherwise.
+PNGs are written with the standard library alone. Loading LDR textures goes
+through Pillow and EXR/HDR through imageio when available (tinyexr
+equivalent), gated gracefully otherwise.
 """
 from __future__ import annotations
 
 import logging
 import os
+import struct
+import zlib
 from typing import Optional
 
 import numpy as np
@@ -58,13 +61,34 @@ def load_image(path: str) -> Optional[np.ndarray]:
     return img
 
 
+def encode_png(img8: np.ndarray) -> bytes:
+    """uint8 [H, W] / [H, W, 1|3|4] -> PNG file bytes (8-bit gray, RGB or
+    RGBA; every scanline unfiltered)."""
+    img8 = np.asarray(img8, np.uint8)
+    if img8.ndim == 2:
+        img8 = img8[..., None]
+    h, w, c = img8.shape
+    color_type = {1: 0, 3: 2, 4: 6}[c]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          img8.reshape(h, w * c)], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
+                                         0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6))
+            + chunk(b"IEND", b""))
+
+
 def write_png(path: str, img: np.ndarray) -> None:
     """8-bit PNG with the reference's x256 clamp-to-255 quantization
     (image-io.cc:171-223)."""
-    from PIL import Image
-
     q = np.clip(np.asarray(img, np.float32) * 256.0, 0.0, 255.0)
-    Image.fromarray(q.astype(np.uint8)).save(path)
+    with open(path, "wb") as f:
+        f.write(encode_png(q.astype(np.uint8)))
 
 
 def write_exr(path: str, img: np.ndarray) -> bool:

@@ -36,8 +36,8 @@ import numpy as np
 
 @dataclasses.dataclass
 class RenderConfig:
-    """src/render-config.h:9-18 (thread is meaningless on TPU; kept for
-    schema compatibility)."""
+    """src/render-config.h:9-18 (thread is meaningless for a wavefront
+    renderer; kept for schema compatibility)."""
 
     scene_filepaths: List[str] = dataclasses.field(default_factory=list)
     width: int = 512
@@ -214,7 +214,7 @@ def load_scene_json(path: str, return_names: bool = False):
 
     # 7. instances — instances sharing a local scene (with identical
     # material/light overrides) become ONE shared-BLAS group traced by
-    # the two-level instancing kernel (reference CreateInstanceFromLocal-
+    # the two-level instancing walk (reference CreateInstanceFromLocal-
     # Scene shares the Embree BLAS the same way, raytracer_impl.cc:49-84).
     # Local scenes containing cyhairs participate too: their curves are
     # baked to world space per instance inside build_instanced while the

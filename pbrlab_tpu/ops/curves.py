@@ -15,7 +15,8 @@ radius — the ray-facing-ribbon model of Embree flat curves. The hit reports:
             through the geometric-normal slot (scene.cc:222-224).
 
 Sub-segments are traversed through their own threaded BVH (same layout as
-the triangle one) with the same stackless pointer walk.
+the triangle one) with the same stackless pointer walk; `curve_trace_bruteforce`
+tests every sub-segment and is the plain reference for it.
 """
 from __future__ import annotations
 
@@ -180,10 +181,56 @@ def curve_trace(scene, org, direction, min_t, max_t, any_hit=False):
         jnp.full((N,), -1, jnp.int32),
     )
     _, t, u, v, sub = lax.while_loop(cond, body, init)
-    # map sub-segment -> source bezier segment + tangent
+    return _curve_hit(scene, t, u, v, sub)
+
+
+def _curve_hit(scene, t, u, v, sub):
+    """Map the hit sub-segment to its source Bezier segment + tangent."""
     safe_sub = jnp.maximum(sub, 0)
     seg = jnp.where(sub >= 0, scene["curve_seg"][safe_sub], -1)
     tangent = scene["curve_p1"][safe_sub] - scene["curve_p0"][safe_sub]
     tlen = jnp.sqrt(jnp.maximum(jnp.sum(tangent * tangent, axis=-1), 1e-20))
     tangent = tangent / tlen[..., None]
     return {"t": t, "u": u, "v": v, "seg": seg, "tangent": tangent}
+
+
+def curve_trace_bruteforce(scene, org, direction, min_t, max_t, chunk=256):
+    """Closest hit over every hair sub-segment (chunked scan): the plain
+    reference for `curve_trace`. Same return dict."""
+    C = scene["curve_p0"].shape[0]
+    N = org.shape[0]
+    pad = (-C) % chunk
+    n_chunks = (C + pad) // chunk
+
+    def padded(key):
+        a = scene[key]
+        a = jnp.pad(a, ((0, pad),) + ((0, 0),) * (a.ndim - 1))
+        return a.reshape((n_chunks, chunk) + a.shape[1:])
+
+    # padding rows have r0 = r1 = 0, which never hit (r > 0 is required)
+    xs = (padded("curve_p0"), padded("curve_p1"), padded("curve_r0"),
+          padded("curve_r1"), padded("curve_u0"), padded("curve_u1"),
+          jnp.arange(n_chunks, dtype=jnp.int32) * chunk)
+
+    def body(best, x):
+        best_t, best_u, best_v, best_sub = best
+        p0, p1, r0, r1, u0, u1, base = x
+        hit, t, s, v = _ribbon_intersect(
+            org[:, None, :], direction[:, None, :], p0[None], p1[None],
+            r0[None], r1[None], min_t[:, None],
+            jnp.minimum(max_t, best_t)[:, None])
+        t = jnp.where(hit, t, INF)
+        j = jnp.argmin(t, axis=1)
+        rows = jnp.arange(N)
+        tj = t[rows, j]
+        better = tj < best_t
+        u_param = u0[j] + (u1[j] - u0[j]) * s[rows, j]
+        return (jnp.where(better, tj, best_t),
+                jnp.where(better, u_param, best_u),
+                jnp.where(better, v[rows, j], best_v),
+                jnp.where(better, base + j.astype(jnp.int32), best_sub)), None
+
+    init = (jnp.full((N,), INF, jnp.float32), jnp.zeros((N,), jnp.float32),
+            jnp.zeros((N,), jnp.float32), jnp.full((N,), -1, jnp.int32))
+    (t, u, v, sub), _ = lax.scan(body, init, xs)
+    return _curve_hit(scene, t, u, v, sub)

@@ -1,14 +1,13 @@
 """Multi-host distributed rendering and training.
 
-TPU-native scaling path specified by SURVEY.md §5 / BASELINE.md: multi-host
-via ``jax.distributed.initialize`` with pixels sharded across the global
-device mesh (ICI within a slice, DCN across slices — the sharding is
-axis-agnostic: XLA routes the collectives), replacing the reference's
-single-node thread pool (/root/reference/src/render.cc:192-241). The only
-cross-host traffic is the image all-gather at the end of a pass and the
-psum gradient all-reduce in the training step — scene arrays are
-replicated at upload, so per-pass scaling is embarrassingly parallel
-(>=80% efficiency target, BASELINE.md).
+Scaling path specified by SURVEY.md §5 / BASELINE.md: multi-host via
+``jax.distributed.initialize`` with pixels sharded across the global device
+mesh (the sharding is axis-agnostic: XLA routes the collectives), replacing
+the reference's single-node thread pool
+(/root/reference/src/render.cc:192-241). The only cross-host traffic is the
+image all-gather at the end of a pass and the psum gradient all-reduce in
+the training step — scene arrays are replicated at upload, so per-pass
+scaling is embarrassingly parallel.
 
 Works on any backend: the multi-process test drives it with two CPU
 processes (tests/test_distributed.py).
@@ -34,9 +33,8 @@ def init_distributed(coordinator: str | None = None,
     """Initialize jax.distributed from args or PBRLAB_* env vars.
 
     Env: PBRLAB_COORDINATOR (host:port), PBRLAB_NUM_PROCESSES,
-    PBRLAB_PROCESS_ID. Returns True when running multi-process. On TPU
-    pods with a cluster env (GKE/Borg), bare ``initialize()`` auto-detects;
-    explicit args are for CPU tests and manual bring-up.
+    PBRLAB_PROCESS_ID. Returns True when running multi-process; without a
+    coordinator the run stays single-process.
     """
     coordinator = coordinator or os.environ.get("PBRLAB_COORDINATOR")
     if num_processes is None and "PBRLAB_NUM_PROCESSES" in os.environ:
@@ -44,18 +42,7 @@ def init_distributed(coordinator: str | None = None,
     if process_id is None and "PBRLAB_PROCESS_ID" in os.environ:
         process_id = int(os.environ["PBRLAB_PROCESS_ID"])
     if coordinator is None:
-        # TPU pod / managed-cluster path: bare initialize() auto-detects
-        # (GKE/Borg/Cloud TPU env). Only attempt when a cluster indicator
-        # is present so single-host CPU runs stay no-ops.
-        pod_env = ("TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS",
-                   "CLOUD_TPU_TASK_ID", "TPU_PROCESS_ADDRESSES")
-        if not any(k in os.environ for k in pod_env):
-            return False
-        try:
-            jax.distributed.initialize()
-        except (RuntimeError, ValueError):
-            return False
-        return jax.process_count() > 1
+        return False
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=num_processes,
                                process_id=process_id)

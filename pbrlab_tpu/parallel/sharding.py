@@ -1,6 +1,6 @@
 """Multi-chip rendering and training via mesh sharding.
 
-TPU-native replacement for the reference's only parallelism — a thread pool
+Replaces the reference's only parallelism — a thread pool
 with atomic tile work-stealing and mutexed accumulation
 (/root/reference/src/render.cc:192-241, SURVEY.md §2.3): pixels are sharded
 over a `jax.sharding.Mesh` axis with `shard_map`; each device renders its
@@ -8,7 +8,7 @@ contiguous lane slice (scene arrays replicated), so forward accumulation is
 local — the cross-device analogue of "each lane owns its pixel" needs no
 collective until image assembly (an all-gather the partitioner inserts at
 the output) and gradient reduction (an explicit psum here, the analogue of
-the gradient all-reduce overlap called for by BASELINE.json).
+the gradient all-reduce).
 """
 from __future__ import annotations
 
@@ -20,10 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map as _shard_map_fn
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map as _shard_map_fn
+from jax import shard_map as _shard_map_fn
 
 
 def shard_map(fn=None, **kw):

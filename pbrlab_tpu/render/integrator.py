@@ -1,6 +1,6 @@
 """Wavefront path-tracing integrator.
 
-TPU-native re-architecture of the reference's recursive per-pixel loop
+Wavefront re-architecture of the reference's recursive per-pixel loop
 (GetRadiance, /root/reference/src/render.cc:24-90, CyclesPrincipledShader
 /root/reference/src/shader/cycles-principled-shader.cc:414-484, and the SSS
 walk /root/reference/src/shader/random-walk-sss.h:227-405):
@@ -57,12 +57,11 @@ def _ablations() -> frozenset:
     """Profiling-only stage ablations, read at TRACE time from
     PBRLAB_ABLATE (comma list). XLA fuses the whole step, so isolated
     stage probes mis-state costs; the honest per-stage budget is
-    full-step minus step-with-stage-removed (scripts/step_profile.py).
+    full-step minus step-with-stage-removed.
     Empty (the default, and any normal render) = exact normal behavior.
 
     CAVEAT (applies to every PBRLAB_* knob read at trace time —
-    PBRLAB_ABLATE, PBRLAB_COMPACT_KEY, PBRLAB_V5S_PASSES,
-    PBRLAB_SHADOW_BACKEND, PBRLAB_SORT_DIRECT): jit caches key on
+    PBRLAB_ABLATE, PBRLAB_COMPACT_KEY, PBRLAB_SORT_DIRECT, ...): jit caches key on
     shapes/statics only, so these must be set BEFORE the first compile of
     a given shape and not toggled in-process — a program compiled under
     the old value is silently reused. Profiling scripts re-trace per
@@ -109,10 +108,9 @@ def _signature_word(scene, direction, org, min_t):
     Bit i is set iff the ray's slab test can hit subtree i of the
     commit-time BFS cut (scene.sig_aabb, <= 29 subtrees). Lanes with
     lex-adjacent words share coarse traversal prefixes, so sorting by the
-    word keeps per-group survivor unions tight for the trace kernels.
-    Cost is ~20 VPU ops per (lane, subtree) — ~4x cheaper than the old
-    exact 122-cluster signature, and the single word makes the compaction
-    sort one-key instead of a 5-key lexsort.
+    word groups lanes that walk the same parts of the BVH. Cost is ~20
+    elementwise ops per (lane, subtree), and the single word makes the
+    compaction sort one-key.
     """
     import os
 
@@ -138,12 +136,9 @@ def _signature_word(scene, direction, org, min_t):
     weights = (jnp.uint32(1) << jnp.arange(k, dtype=jnp.uint32))[None]
     sig = (mask.astype(jnp.uint32) * weights).sum(axis=1, dtype=jnp.uint32)
     if os.environ.get("PBRLAB_COMPACT_KEY") == "nearest":
-        # tried-and-rejected: grouping primarily by the NEAREST hit
-        # subtree (the v5s scheduling insight) with the bitmask as minor
-        # key measured WORSE than the plain bitmask for the in-render
-        # compaction (2.72 vs 2.22 s at 512^2x16spp) — mid-path rays'
-        # nearest box correlates less with their traversal than their
-        # full can-hit set does. Kept as an ablation knob.
+        # ablation: group primarily by the NEAREST hit subtree, with the
+        # bitmask as minor key (mid-path rays' nearest box may correlate
+        # less with their traversal than their full can-hit set does)
         near = jnp.argmin(jnp.where(mask, tnear, jnp.float32(1e30)),
                           axis=1).astype(jnp.uint32)
         return (near << jnp.uint32(24)) | (sig & jnp.uint32(0xFFFFFF))
@@ -154,18 +149,15 @@ def compact_state(state: PathState, scene) -> PathState:
     """Sort lanes by (dead, mode, cluster-hit signature).
 
     The reference has no analogue (its threads pull whole tiles); this is
-    the wavefront "ray compaction" of SURVEY.md §7: dead lanes pack into
-    all-dead groups the trace kernels skip entirely, and alive lanes group
-    by which trace clusters they can hit, so the v4 kernel's per-group
-    survivor unions stay tight. Per-lane RNG streams make the image
-    bit-identical under any permutation; the state rides through ONE
-    fat-row gather.
+    the wavefront "ray compaction" of SURVEY.md §7: dead lanes pack
+    together, and alive lanes group by which BVH subtrees they can hit.
+    Per-lane RNG streams make the image bit-identical under any
+    permutation; the state rides through ONE fat-row gather.
 
     Alive VOLUME lanes sort FIRST (before alive surface lanes): the
     k_volume substeps in render_lanes_wavefront then only need to touch a
     static leading window of the sorted state instead of the full lane
-    array (volume lanes are typically a small minority; running the
-    substep math full-width cost ~3.3 of the headline's ~8 ms/iter).
+    array (volume lanes are typically a small minority of the lanes).
     """
     import os
 
@@ -222,9 +214,8 @@ def compact_state(state: PathState, scene) -> PathState:
 # The refill while_loop's carry rides as ONE [N, 32] f32 matrix instead
 # of the 19 PathState arrays. Why: with separate carries, every
 # compaction must CONCATENATE the state, gather it, and SLICE it back
-# into carry arrays — two full-state materializations per iteration
-# (~0.6 ms at 65k lanes, measured round 4: FULL compact 1.37 ms vs
-# signature 0.10 + argsort 0.47 + pack+gather 0.18). With the packed
+# into carry arrays — two full-state materializations per iteration.
+# With the packed
 # carry the gather permutes the carry ITSELF; the unpack slices at the
 # top of the body fuse into their consumers and the pack concatenate is
 # the carry write the loop needs anyway. unpack(pack(s)) == s exactly
@@ -346,7 +337,8 @@ def _fetch_face_fat(scene, safe_prim):
     nrm = lax.stop_gradient(sh[:, 12:21]).reshape(-1, 3, 3)
 
     def rot(v):
-        return jnp.einsum("nij,nj->ni", nrm, v)
+        return jnp.einsum("nij,nj->ni", nrm, v,
+                          precision=lax.Precision.HIGHEST)
 
     ng = vnormalize(rot(lrow[:, 0:3]))
     cns = lrow[:, 3:12].reshape(-1, 3, 3)
@@ -374,8 +366,8 @@ def _fetch_colors(scene, mat, uv):
     (cycles-principled-shader.cc:281-301).
 
     Statically skipped for texture-free scenes (the dummy [1,1,1,3]
-    atlas): per-lane gathers are the wavefront's main fixed cost (~2 ms
-    per 262k lanes), so 8 corner fetches of a dummy atlas are real money.
+    atlas): 8 per-lane corner fetches of a dummy atlas would be pure
+    gather cost.
     Textured scenes use the quad-texel atlas: ONE gather per fetch."""
     if "texture_quad" not in scene:
         return mat["base_color"], mat["subsurface_color"]
@@ -398,7 +390,7 @@ def _fetch_colors(scene, mat, uv):
 
 def _nee(scene, pos, geom_normal, omega_out_local, ex, ey, ez,
          bsdf: PrincipledBsdf, hair_b, is_hair, u0, u1, u2, shade_mask,
-         trace_backend=None, defer=False):
+         defer=False):
     """Next-event estimation (DirectIllumination, shader-utils.h:166-212).
 
     geom_normal is the normal used for the geometric terms: the flipped
@@ -450,8 +442,7 @@ def _nee(scene, pos, geom_normal, omega_out_local, ex, ey, ez,
     else:
         occluded = occluded_scene(
             scene, pos, wl, jnp.full_like(dist, EPS),
-            jnp.where(candidate, shadow_max, -1.0),
-            backend=trace_backend)
+            jnp.where(candidate, shadow_max, -1.0))
     ok = candidate & ~occluded
     contrib = jnp.where(ok[..., None] & jnp.isfinite(contrib).all(-1,
                                                                   keepdims=True),
@@ -461,8 +452,7 @@ def _nee(scene, pos, geom_normal, omega_out_local, ex, ey, ez,
 
 def wavefront_step(scene, state: PathState, depth: int,
                    freeze_surface: bool = False,
-                   resolve_pending: bool = False,
-                   windowed: bool = False) -> PathState:
+                   resolve_pending: bool = False) -> PathState:
     """Advance every lane by one trace. See module docstring.
 
     freeze_surface=True runs a VOLUME-ONLY substep: surface-mode lanes do
@@ -519,17 +509,6 @@ def wavefront_step(scene, state: PathState, depth: int,
     max_t = jnp.where(state.alive, max_t, -1.0)  # dead lanes: no traversal
 
     # ---- one closest-hit trace for all lanes (triangles + hair) ----
-    # k_volume substeps fire only volume-mode lanes: use the sparse
-    # (group-skipping) trace backend for them
-    trace_backend = None
-    if freeze_surface and not windowed:
-        from ..ops.intersect import sparse_backend
-
-        trace_backend = sparse_backend(scene)
-    # windowed=True (render_lanes_wavefront volume window): the lanes in
-    # the window are mostly ALIVE volume walkers, so the mostly-dead
-    # rationale behind sparse_backend does not apply — keep the scene's
-    # default (densest) backend.
     nee_active = state.nee_maxt >= 0.0
     # Which pendings does THIS step resolve? Full steps: all of them
     # (origins are fixed once a lane leaves its shade point only by the
@@ -542,9 +521,8 @@ def wavefront_step(scene, state: PathState, depth: int,
                         if resolve_pending else jnp.zeros((n,), bool))
     else:
         resolve_mask = nee_active
-    # the pending shadow query shares the lane's ray ORIGIN, so it rides
-    # the closest-hit launch as a fused dual query where the backend has
-    # a dual kernel (dense4/dense5; others fall back to two launches)
+    # the pending shadow query shares the lane's ray ORIGIN, so it is
+    # issued together with the closest hit (trace_scene_dual)
     fuse_dual = ("nonee" not in abl and "noshadow" not in abl
                  and "notrace" not in abl
                  and (not freeze_surface or resolve_pending))
@@ -562,14 +540,12 @@ def wavefront_step(scene, state: PathState, depth: int,
         hit, occ_prev = trace_scene_dual(
             scene, state.org, direction, min_t, max_t,
             state.nee_dir, jnp.full((n,), EPS, jnp.float32),
-            jnp.where(resolve_mask, state.nee_maxt, -1.0),
-            backend=trace_backend)
+            jnp.where(resolve_mask, state.nee_maxt, -1.0))
         hit = jax.tree_util.tree_map(lax.stop_gradient, hit)
     else:
         hit = jax.tree_util.tree_map(
             lax.stop_gradient,
-            trace_scene(scene, state.org, direction, min_t, max_t,
-                        backend=trace_backend))
+            trace_scene(scene, state.org, direction, min_t, max_t))
     prim = hit["prim"]
     is_curve = hit["is_curve"]
     hit_ok = (prim >= 0) | is_curve
@@ -622,8 +598,7 @@ def wavefront_step(scene, state: PathState, depth: int,
             occ_prev = occluded_scene(
                 scene, state.org, state.nee_dir,
                 jnp.full((n,), EPS, jnp.float32),
-                jnp.where(resolve_mask, state.nee_maxt, -1.0),
-                backend=trace_backend)
+                jnp.where(resolve_mask, state.nee_maxt, -1.0))
         contribution = contribution + jnp.where(
             (resolve_mask & ~occ_prev)[..., None], state.nee_contrib, 0.0)
         resolved_now = resolve_mask
@@ -996,11 +971,10 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
     SPMD analogue: a global `next_pixel` cursor rides the loop carry; the
     moment a lane finishes the last sample of its pixel it claims the next
     unclaimed pixel (rank among same-iteration claimants via a cumsum — the
-    wavefront's "atomic fetch-add"). Static K-pixel ownership was tried
-    first and left a 1.9x worst-lane tail on the 1024^2 bench (6645
-    iterations vs ~3500 of mean work): heavy SSS pixels serialize on
-    whichever lane owns them. With claiming, the tail is bounded by ONE
-    pixel's spp-sequential duration instead of a worst lane's whole set.
+    wavefront's "atomic fetch-add"). With static K-pixel ownership, heavy
+    SSS pixels serialize on whichever lane owns them; with claiming, the
+    tail is bounded by ONE pixel's spp-sequential duration instead of a
+    worst lane's whole set.
 
     Deterministic and layout-invariant: a pixel's spp samples are
     processed by exactly one lane in increasing-sample order (claims are
@@ -1036,10 +1010,9 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
     # state.lane = currently claimed LOCAL pixel; state.sample = sample
     # index within that pixel; sample == spp marks a retired lane.
 
-    # Amortized framebuffer flush: the per-iteration 65k-row scatter-add
-    # costs ~0.7 ms in-loop (round-5 loop_floor decomposition) although
-    # only ~hundreds of lanes flush per iteration — XLA scatter cost is
-    # per index row, not per active row. Instead each lane accumulates
+    # Amortized framebuffer flush: a per-iteration scatter-add over every
+    # lane pays for each index row although only ~hundreds of lanes flush
+    # per iteration. Instead each lane accumulates
     # its pixel's finished samples in a carried pix_acc column (same
     # order as the old per-sample scatters: fb rows stay bit-identical
     # because a pixel is only ever touched by one lane), parks the total
@@ -1048,7 +1021,10 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
     # many times — no lax.cond copies). Safe because a pixel takes
     # >= spp >= flush_every sub-iterations, so a pend slot written in one
     # trip is always drained before its lane can complete another pixel.
-    flush_every = max(1, min(int(os.environ.get("PBRLAB_FLUSH_EVERY", "4")),
+    # Default 1: every unrolled copy repeats the whole step program, and
+    # compile time grows with the program (a 4x unroll of the k_volume=3
+    # headline is ~55 MB of HLO; XLA:GPU took minutes to compile it).
+    flush_every = max(1, min(int(os.environ.get("PBRLAB_FLUSH_EVERY", "1")),
                              spp))
 
     # packed carry extension: _PACK_COLS PathState cols + pix_acc +3 +
@@ -1128,13 +1104,11 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
 
     # volume-substep window: compact_packed sorts alive VOLUME lanes
     # first, so after a sort the k_volume substeps only need to run on a
-    # static leading slice of the state. Full-width substeps cost ~1.1 ms
-    # each at 65k lanes (masked math + gathers over every lane); the
-    # window caps that at W lanes. A full-width fallback branch keeps the
-    # render correct when a step ever puts > W lanes into volume mode.
-    # default 3/8 of the lanes: measured optimum on the SSS-heavy
-    # headline (65k lanes: window 24576 < 16384 < 32768 < 8192; smaller
-    # windows overflow into the full-width fallback too often)
+    # static leading slice of the state. Full-width substeps pay masked
+    # math + gathers over every lane; the window caps that at W lanes. A
+    # full-width fallback branch keeps the render correct when a step ever
+    # puts > W lanes into volume mode. Default 3/8 of the lanes: smaller
+    # windows overflow into the full-width fallback more often.
     vol_window = max(1,
                      min(int(os.environ.get("PBRLAB_VOL_WINDOW",
                                             str(max(1, n_lanes * 3 // 8)))),
@@ -1143,15 +1117,14 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
                  and os.environ.get("PBRLAB_SORT_DIRECT", "1") == "1"
                  and vol_window < n_lanes)
 
-    def vol_substeps(st, windowed=False):
+    def vol_substeps(st):
         for i in range(k_volume):
             st = wavefront_step(scene, st, 0, freeze_surface=True,
-                                resolve_pending=(i == 0),
-                                windowed=windowed)
+                                resolve_pending=(i == 0))
         return st
 
-    def vol_substeps_packed(p, windowed=False):
-        st = vol_substeps(unpack_state(p[:, :PC]), windowed=windowed)
+    def vol_substeps_packed(p):
+        st = vol_substeps(unpack_state(p[:, :PC]))
         return jnp.concatenate([pack_state(st), p[:, PC:]], axis=1)
 
     def body(carry):
@@ -1200,13 +1173,13 @@ def render_lanes_wavefront(scene, width: int, height: int, spp: int,
 
                 def win_sub(p):
                     return jnp.concatenate(
-                        [vol_substeps_packed(p[:vol_window], windowed=True),
+                        [vol_substeps_packed(p[:vol_window]),
                          p[vol_window:]], axis=0)
 
                 # one cond, not a nested nv>0 short-circuit: on SSS
                 # scenes some lanes are nearly always walking, so the
                 # extra branch only adds a full-state copy; an all-dead
-                # window costs ~nothing (the kernels skip dead groups)
+                # window only runs masked work
                 packed = lax.cond(nv <= vol_window, win_sub,
                                   vol_substeps_packed, packed)
                 packed = packed.at[:, 15].set(jnp.where(

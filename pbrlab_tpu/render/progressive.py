@@ -3,7 +3,7 @@
 The reference GUI (SURVEY.md §3.3) runs a render thread re-invoking Render()
 until max_pass, applies EditQueue material edits between passes, and resets
 the accumulation on Rerender (pc/pbrlab-gui.cc:207-238, pc-common.h:14-81,
-glfw-window.cc:621-625). The TPU-native equivalents:
+glfw-window.cc:621-625). The equivalents here:
 
 * a pass is one jitted sample batch; "live edit" is free because material
   parameters are jit INPUTS (pytree leaves), not compiled constants — no

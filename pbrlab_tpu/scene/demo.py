@@ -198,3 +198,51 @@ def build_demo_scene(with_monkey=True, with_lucy=True, subdiv=3,
         b.add_instance([], curves=[hair])
 
     return commit(b.build()), b
+
+
+def instance_grid(k: int, spacing: float = 1.2) -> np.ndarray:
+    """k transforms [k, 4, 4] on a square grid at y = 0.55, each with its
+    own rotation about y and scale."""
+    out = []
+    side = int(np.ceil(np.sqrt(k)))
+    for i in range(k):
+        gx, gz = i % side, i // side
+        c, s = np.cos(0.7 * i), np.sin(0.7 * i)
+        m = np.eye(4)
+        m[:3, :3] = (np.asarray([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+                     * (0.8 + 0.1 * (i % 3)))
+        m[:3, 3] = (gx * spacing - side * spacing / 2, 0.55,
+                    gz * spacing - side * spacing / 2)
+        out.append(m)
+    return np.stack(out).astype(np.float32)
+
+
+def instanced_spheres_builders(k: int) -> Tuple[SceneBuilder, SceneBuilder]:
+    """(instanced builder, baked builder) of one scene: k spheres sharing
+    one local scene over a lit floor. The first goes to
+    scene.instanced.build_instanced, the second to commit(b.build())."""
+    def base(b):
+        m = b.materials
+        white = m.add_principled("floor", base_color=(0.7, 0.7, 0.7),
+                                 specular=0.0)
+        ball = m.add_principled("ball", base_color=(0.8, 0.4, 0.2),
+                                specular=0.0, roughness=0.4)
+        side = max(3.0, np.sqrt(k) * 1.2)
+        b.add_instance([quad_mesh([-side, 0, -side], [-side, 0, side],
+                                  [side, 0, side], [side, 0, -side], white,
+                                  "floor")])
+        lid = b.add_area_light_param((12.0, 12.0, 12.0))
+        lq = quad_mesh([-1, 4.0, -1], [1, 4.0, -1], [1, 4.0, 1],
+                       [-1, 4.0, 1], white, "light")
+        b.add_instance([lq], light_ids=[np.full((2,), lid, np.int32)])
+        return ball
+
+    ts = instance_grid(k)
+    bi = SceneBuilder()
+    bi.add_shared_instances(
+        [icosphere(1, 0.45, material_id=base(bi), name="ball")], ts)
+    bb = SceneBuilder()
+    sphere = icosphere(1, 0.45, material_id=base(bb), name="ball")
+    for m in ts:
+        bb.add_instance([sphere], transform=m)
+    return bi, bb

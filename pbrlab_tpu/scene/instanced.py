@@ -5,12 +5,13 @@ into the global scene with a 4x4 transform
 (/root/reference/src/raytracer/raytracer_impl.cc:49-84, Scene::
 CreateLocalScene / CreateInstanceFromLocalScene, scene.cc:106-160);
 per-instance id tables resolve materials and light params at hit time
-(mesh-instance.h:23-36). The TPU-native layout here:
+(mesh-instance.h:23-36). The device layout here:
 
-* ONE packed triangle table + V5 BLAS node block per local scene (LOCAL
-  space), shared by every instance — K instances never copy geometry;
-* a TLAS over instance world AABBs whose leaves carry the world->local
-  affine (ops.pallas.dense_v5i traversal);
+* ONE local-space triangle table + threaded BLAS per local scene (shared
+  group), shared by every instance — K instances never copy geometry;
+* a threaded TLAS over instance world AABBs; each instance carries its
+  world->local affine, BLAS node range and face-id offset
+  (ops.intersect.intersect_instanced walks both levels);
 * per-(instance, face) NARROW columns (material id, light pdf, emission,
   instance, local slot — the reference's id tables, ~32 B/face) while the
   fat geometric attributes (normals, uvs, ~80 B/face) stay per-LOCAL-face
@@ -25,8 +26,13 @@ per-instance id tables resolve materials and light params at hit time
   space so the SSS same-instance test spans both geometries.
 
 Memory: K instances of an F-face local scene cost K*F*32 B + F*(fat+BVH)
-instead of the baked path's K*F*(fat + geometry + BVH slots) — the
+instead of the baked path's K*F*(fat + geometry + BVH) — the
 100-instance test asserts >5x total reduction.
+
+Trace tables: tlas_* (threaded BVH, one instance per leaf) and blas_*
+(every group's threaded BVH, concatenated; prim ids are local slots).
+inst_meta [K, 3] int32 = (BLAS root node, BLAS end node, face-id delta):
+a hit on local slot s of instance k is iface row s + delta_k.
 """
 from __future__ import annotations
 
@@ -58,8 +64,7 @@ def _affine(m):
 def build_instanced(builder) -> Dict[str, np.ndarray]:
     """Builder (with _shared groups and/or plain _instances) -> committed
     instanced scene dict. Plain instances become K=1 groups."""
-    from ..ops.pallas.dense_v5 import CLUSTER, build_v5
-    from ..ops.pallas.dense_v5i import STACK, build_tlas
+    from ..geometry.bvh import build_bvh, node_arrays, triangle_bounds
 
     groups: List[SharedGroup] = list(getattr(builder, "_shared", []))
     for inst in builder._instances:
@@ -75,16 +80,16 @@ def build_instanced(builder) -> Dict[str, np.ndarray]:
     scene: Dict[str, np.ndarray] = {}
 
     # ---- per-group local BLAS + local attributes -----------------------
-    packed_blocks = []
-    node_aabb_blocks = []
-    node_meta_blocks = []
+    # slots = the faces of every group, concatenated; group gi owns
+    # [group_slot_base[gi], + group_num_slots[gi])
+    blas = []  # (gi, threaded BVH over the group's faces, local ids)
     local_fat_rows = []
+    tri_rows = []
     group_slot_base = {}
     group_num_slots = {}
     group_local_mat = {}  # per slot
     group_local_light = {}  # per slot: light param id or -1
     group_root_box = {}
-    group_local_tris = {}  # per slot [S, 3, 3] for emissive transforms
     s_running = 0
     for gi in tri_gis:
         g = groups[gi]
@@ -116,43 +121,27 @@ def build_instanced(builder) -> Dict[str, np.ndarray]:
         v0 = V[:, 0]
         e1 = V[:, 1] - V[:, 0]
         e2 = V[:, 2] - V[:, 0]
-        packed, _leaf_aabb, order, naabb, nmeta = build_v5(v0, e1, e2)
-        s = order.shape[0]
-        src = np.maximum(order, 0)
-        valid = (order >= 0).astype(np.float32)[:, None]
+        s = v0.shape[0]
+        bvh = build_bvh(*triangle_bounds(v0, e1, e2))
+        blas.append((gi, bvh))
 
         ng = np.cross(e1, e2)
         ng = ng / np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True),
                              1e-30)
-        corner_ns = np.concatenate(ns_list).astype(np.float32)
-        has_ns = np.concatenate(has_ns_list)
-        corner_uv = np.concatenate(uv_list).astype(np.float32)
-        has_uv = np.concatenate(has_uv_list)
-        fat = np.concatenate([
-            ng[src], corner_ns[src].reshape(-1, 9),
-            corner_uv[src].reshape(-1, 6),
-            has_ns[src].astype(np.float32)[:, None],
-            has_uv[src].astype(np.float32)[:, None],
-        ], axis=1) * valid
-        local_fat_rows.append(fat.astype(np.float32))
-
-        packed_blocks.append(packed)
-        node_aabb_blocks.append(naabb)
-        node_meta_blocks.append(nmeta)
+        local_fat_rows.append(np.concatenate([
+            ng, np.concatenate(ns_list).reshape(-1, 9),
+            np.concatenate(uv_list).reshape(-1, 6),
+            np.concatenate(has_ns_list).astype(np.float32)[:, None],
+            np.concatenate(has_uv_list).astype(np.float32)[:, None],
+        ], axis=1).astype(np.float32))
+        tri_rows.append(np.stack([v0, e1, e2], axis=1))  # [S, 3, 3]
         group_slot_base[gi] = s_running
         group_num_slots[gi] = s
-        mats = np.concatenate(mat_list)
-        lights = np.concatenate(light_list)
-        group_local_mat[gi] = (
-            np.where(order >= 0, mats[src], 0).astype(np.int32))
-        group_local_light[gi] = (
-            np.where(order >= 0, lights[src], -1).astype(np.int32))
-        group_root_box[gi] = (naabb[0:3, 0].copy(), naabb[3:6, 0].copy())
-        tris = np.stack([v0[src], e1[src], e2[src]], axis=1)  # [S, 3, 3]
-        group_local_tris[gi] = tris * valid[:, :, None]
+        group_local_mat[gi] = np.concatenate(mat_list)
+        group_local_light[gi] = np.concatenate(light_list)
+        group_root_box[gi] = (bvh.aabb_min[0], bvh.aabb_max[0])
         s_running += s
-
-    packed_all = np.concatenate(packed_blocks, axis=1)
+    local_tris = np.concatenate(tri_rows).astype(np.float32)
 
     # ---- instances ------------------------------------------------------
     inst_inv_rows = []
@@ -203,59 +192,47 @@ def build_instanced(builder) -> Dict[str, np.ndarray]:
         for m4 in np.asarray(g.transforms, np.float64).reshape(-1, 4, 4):
             curve_jobs.append((g.curves, m4, k_next))
             k_next += 1
-    inst_inv = np.stack(inst_inv_rows).T.astype(np.float32)  # [12, K]
     inst_shade = np.stack(inst_shade_rows).astype(np.float32)  # [K, 24]
     iface_mat = np.concatenate(iface_mat)
     iface_light = np.concatenate(iface_light)
     iface_inst = np.concatenate(iface_inst)
     iface_slot = np.concatenate(iface_slot)
 
-    # ---- TLAS + unified node array --------------------------------------
-    tlas_aabb, tlas_right, tlas_inst = build_tlas(
-        np.stack(inst_bmin).astype(np.float32),
-        np.stack(inst_bmax).astype(np.float32))
-    nt = tlas_right.shape[0]
-    blas_base = {}
-    off = nt
-    for bi, gi in enumerate(tri_gis):
-        blas_base[gi] = off
-        off += node_meta_blocks[bi].shape[1]
-    node_aabb = np.concatenate([tlas_aabb]
-                               + node_aabb_blocks, axis=1).astype(np.float32)
-    metas = [np.stack([
-        np.where(tlas_right >= 0, tlas_right, -1),
-        np.where(tlas_inst >= 0, -(tlas_inst + 1), 0)])]
-    for bi, gi in enumerate(tri_gis):
-        nm = node_meta_blocks[bi]
-        right = np.where(nm[0] >= 0, nm[0] + blas_base[gi], -1)
-        meta1 = np.where(nm[0] < 0, nm[1] + group_slot_base[gi], 0)
-        metas.append(np.stack([right, meta1]))
-    node_meta = np.concatenate(metas, axis=1).astype(np.int32)
-    inst_meta = np.stack([
-        np.asarray([blas_base[g] for g in inst_group], np.int32),
-        np.asarray(inst_fid_delta, np.int32)])
-
-    # stack bound: TLAS depth + max BLAS depth
-    def depth_of(right, base=0):
-        n = right.shape[0]
-        d = np.zeros(n, np.int32)
-        for i in range(n):
-            r = right[i] - base
-            if right[i] >= 0:
-                d[i + 1] = d[i] + 1
-                d[r] = d[i] + 1
-        return d.max() if n else 0
-
-    td = depth_of(np.where(tlas_right >= 0, tlas_right, -1))
-    bd = max(depth_of(np.where(nm[0] >= 0, nm[0], -1))
-             for nm in node_meta_blocks)
-    assert td + bd + 4 < STACK, f"stack overflow: tlas {td} + blas {bd}"
-
-    scene["i5_tris"] = packed_all
-    scene["i5_node_aabb"] = node_aabb
-    scene["i5_node_meta"] = node_meta
-    scene["i5_inst_inv"] = inst_inv
-    scene["i5_inst_meta"] = inst_meta
+    # ---- TLAS over instance world boxes + the groups' BLASes -----------
+    tlas = build_bvh(np.stack(inst_bmin).astype(np.float32),
+                     np.stack(inst_bmax).astype(np.float32), leaf_size=1,
+                     use_native=False)
+    for key, val in (("min", tlas.aabb_min), ("max", tlas.aabb_max),
+                     ("skip", tlas.skip), ("prim_offset", tlas.prim_offset),
+                     ("prim_ids", tlas.prim_ids)):
+        scene["tlas_" + key] = val
+    cols = {k: [] for k in ("min", "max", "skip", "prim_offset",
+                            "prim_ids")}
+    blas_range = {}
+    node_off = slot_off = 0
+    for gi, bvh in blas:
+        blas_range[gi] = (node_off, node_off + bvh.num_nodes)
+        cols["min"].append(bvh.aabb_min)
+        cols["max"].append(bvh.aabb_max)
+        cols["skip"].append(bvh.skip + node_off)
+        cols["prim_offset"].append(np.where(bvh.prim_offset >= 0,
+                                            bvh.prim_offset + slot_off, -1))
+        cols["prim_ids"].append(np.where(
+            bvh.prim_ids >= 0, bvh.prim_ids + group_slot_base[gi], -1))
+        node_off += bvh.num_nodes
+        slot_off += bvh.prim_ids.shape[0]
+    for key, parts in cols.items():
+        scene["blas_" + key] = np.concatenate(parts)
+    scene["blas_prim_ids"] = scene["blas_prim_ids"].astype(np.int32)
+    scene["blas_prim_offset"] = scene["blas_prim_offset"].astype(np.int32)
+    scene["blas_v0"] = local_tris[:, 0]
+    scene["blas_e1"] = local_tris[:, 1]
+    scene["blas_e2"] = local_tris[:, 2]
+    scene["inst_inv"] = np.stack(inst_inv_rows).astype(np.float32)  # [K,12]
+    scene["inst_meta"] = np.stack([
+        np.asarray([blas_range[g][0] for g in inst_group], np.int32),
+        np.asarray([blas_range[g][1] for g in inst_group], np.int32),
+        np.asarray(inst_fid_delta, np.int32)], axis=1)
     scene["inst_shade"] = inst_shade
     scene["local_fat"] = np.concatenate(local_fat_rows).astype(np.float32)
     scene["iface_material"] = iface_mat
@@ -274,8 +251,7 @@ def build_instanced(builder) -> Dict[str, np.ndarray]:
         em = light_emission[iface_light[emissive]]
         iface_emission[emissive] = em
         lslots = iface_slot[emissive]
-        ltris = np.concatenate(
-            [group_local_tris[gi] for gi in tri_gis])[lslots]  # [LF, 3, 3]
+        ltris = local_tris[lslots]  # [LF, 3, 3]
         a_rows = inst_shade[iface_inst[emissive], :12].reshape(-1, 3, 4)
         v0w = np.einsum("lij,lj->li", a_rows[:, :, :3],
                         ltris[:, 0]) + a_rows[:, :, 3]
@@ -323,8 +299,8 @@ def build_instanced(builder) -> Dict[str, np.ndarray]:
     # instance transform like any other geometry (raytracer_impl.cc:154-197
     # + :49-84); here the SHARED structure is the triangle BLAS — curve
     # control points (4 floats/point, a small fraction of a local scene's
-    # fat+BVH bytes) are baked per instance, keeping the existing dense
-    # curve kernel and exact world-space radiometry.
+    # fat+BVH bytes) are baked per instance, keeping one curve BVH and
+    # exact world-space radiometry.
     from .scene import commit_curves, transform_curve_points
 
     curve_pts, curve_mat, curve_inst, curve_col = [], [], [], []
@@ -356,8 +332,8 @@ def build_instanced(builder) -> Dict[str, np.ndarray]:
                                else np.zeros((0,), np.int32))
     if any_colors:  # see scene.py: per-strand hair base-color override
         scene["curve_color"] = np.concatenate(curve_col).astype(np.float32)
-    scene["aabb_min"] = node_aabb[0:3, 0].copy()
-    scene["aabb_max"] = node_aabb[3:6, 0].copy()
+    scene["aabb_min"] = tlas.aabb_min[0].copy()
+    scene["aabb_max"] = tlas.aabb_max[0].copy()
     if scene["curve_pts"].size:
         cp = scene["curve_pts"].reshape(-1, 4)
         scene["aabb_min"] = np.minimum(
@@ -367,5 +343,6 @@ def build_instanced(builder) -> Dict[str, np.ndarray]:
 
     from .scene import _signature_cut
 
-    scene["sig_aabb"] = _signature_cut(node_aabb, node_meta, max_nodes=29)
+    # compaction signature over the world-space level only
+    scene["sig_aabb"] = _signature_cut(*node_arrays(tlas), max_nodes=29)
     return commit_curves(scene)

@@ -2,7 +2,7 @@
 
 The reference stores materials as a variant<CyclesPrincipledBsdfParameter,
 HairBsdfParameter> (/root/reference/src/material-param.h:20-75). A variant
-doesn't vectorize; the TPU-native layout is one SoA table holding every
+doesn't vectorize; the layout here is one SoA table holding every
 parameter column for all materials plus an integer `kind` column, gathered
 per-lane at shade time. The table is a pytree of jnp arrays, so it is exactly
 the differentiable-parameter surface: jax.grad w.r.t. a MaterialTable gives
@@ -118,9 +118,9 @@ def lookup(name_list: List[str], name: str) -> int:
 
 
 # ---- fat-row packing -------------------------------------------------------
-# TPU gathers pay per ROW, not per byte (~140M rows/s measured on v5e), so
-# the per-lane material fetch packs every column into ONE [M, K] matrix and
-# gathers a single fat row per lane; columns are sliced out afterwards.
+# The per-lane material fetch packs every column into ONE [M, K] matrix and
+# gathers a single fat row per lane (one gather instead of one per
+# column); columns are sliced out afterwards.
 # Packing happens inside jit from the SoA table so gradients still flow to
 # the original differentiable leaves.
 

@@ -3,7 +3,7 @@
 Reference layer L3 (/root/reference/src/scene.{h,cc}, light-manager.{h,cc},
 mesh-instance.h). The reference keeps pointer-rich structures (local scenes,
 instances, variants) and resolves attributes through id tables at hit time.
-The TPU-native layout flattens everything at commit:
+The device layout flattens everything at commit:
 
 * every instanced triangle is baked to world space into global SoA arrays
   (the reference only ever uses identity instance transforms —
@@ -349,19 +349,15 @@ def commit(scene: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
     Adds the flat threaded-BVH arrays consumed by ops.intersect.
     """
-    from ..geometry.bvh import build_bvh, triangle_bounds
-    from ..ops.pallas.dense import pack_triangles
-    from ..ops.pallas.dense_v5 import build_v5
+    from ..geometry.bvh import build_bvh, build_slot_order, triangle_bounds
 
     scene = dict(scene)
 
-    # The SAH slot layout is the CANONICAL face order: every per-face
-    # column is scattered into the padded slot array (S = M * CLUSTER
-    # slots, padding rows zero), so the kernel's slot ids ARE the scene
-    # face ids with no remap gather in the hot loop. ONE leaf-32 SAH
-    # build feeds both the V5 packet-traversal kernel (node arrays) and
-    # the V4 survivor-list kernel (leaf AABBs as flat clusters).
-    packed4, cluster_aabb4, order, node_aabb5, node_meta5 = build_v5(
+    # The leaf-32 SAH slot layout is the CANONICAL face order: every
+    # per-face column is scattered into the padded slot array (S slots,
+    # padding rows zero), so trace prim ids ARE scene face ids. The same
+    # build's node arrays give the compaction signature cut.
+    order, node_aabb, node_meta = build_slot_order(
         scene["tri_v0"], scene["tri_e1"], scene["tri_e2"])
     F = scene["tri_v0"].shape[0]
     S = order.shape[0]
@@ -381,40 +377,11 @@ def commit(scene: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         inv[order[valid]] = np.nonzero(valid)[0].astype(np.int32)
         if scene["emissive_faces"].size:
             scene["emissive_faces"] = inv[scene["emissive_faces"]]
-    scene["dense_tris_v4"] = packed4
-    scene["dense_cluster_aabb_v4"] = cluster_aabb4
-    scene["v5_node_aabb"] = node_aabb5
-    scene["v5_node_meta"] = node_meta5
-    scene["sig_aabb"] = _signature_cut(node_aabb5, node_meta5, max_nodes=29)
-    if packed4.shape[1] > 18000:
-        # past the 1 MB v5e SMEM budget (~20k slots incl. stack/node
-        # arrays) the triangle table must live in HBM: leaf-major layout
-        # for the V5L leaf-DMA kernel; plus the V5S subtree cut for
-        # incoherent-ray scheduling (ops.pallas.dense_v5.dense_trace_v5s)
-        from ..ops.pallas.dense_v5 import leaf_major, subtree_cut
-
-        scene["dense_tris_v5l"] = leaf_major(packed4)
-        roots, sub_aabb = subtree_cut(node_aabb5, node_meta5, max_nodes=64)
-        scene["v5s_roots"] = roots
-        scene["v5s_aabb"] = sub_aabb
-
-    # V2/V3 Morton packing runs on the VALID slots only (padding rows are
-    # degenerate); their sorted prim ids map back to slot ids through
-    # dense_order (legacy backends).
-    if F:
-        vslots = np.nonzero(order >= 0)[0].astype(np.int32)
-    else:
-        vslots = np.zeros((0,), np.int32)
-    packed, cluster_aabb, m_order = pack_triangles(
-        scene["tri_v0"][vslots], scene["tri_e1"][vslots],
-        scene["tri_e2"][vslots])
-    scene["dense_tris"] = packed
-    scene["dense_cluster_aabb"] = cluster_aabb
-    scene["dense_order"] = (vslots[m_order] if m_order.size
-                            else np.zeros((0,), np.int32))
+    scene["sig_aabb"] = _signature_cut(node_aabb, node_meta, max_nodes=29)
 
     # threaded BVH over the valid slots, prim ids remapped to slot ids
     if F:
+        vslots = np.nonzero(order >= 0)[0].astype(np.int32)
         bmin, bmax = triangle_bounds(scene["tri_v0"][vslots],
                                      scene["tri_e1"][vslots],
                                      scene["tri_e2"][vslots])
@@ -422,7 +389,6 @@ def commit(scene: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         bmin, bmax = triangle_bounds(scene["tri_v0"], scene["tri_e1"],
                                      scene["tri_e2"])
     bvh = build_bvh(bmin, bmax)
-    scene = dict(scene)
     scene["bvh_min"] = bvh.aabb_min
     scene["bvh_max"] = bvh.aabb_max
     scene["bvh_skip"] = bvh.skip
@@ -436,31 +402,21 @@ def commit(scene: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 def commit_curves(scene: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """Curve (hair) acceleration structures: flatten Bezier segments into
-    linear sub-segments, Morton-order them for the dense kernel, and build
-    the curve BVH. Shared by the baked `commit` and `build_instanced`
+    linear sub-segments in Morton order of their midpoints, and build the
+    curve BVH. Shared by the baked `commit` and `build_instanced`
     (reference: hair registered into local scenes exactly like triangles,
     raytracer_impl.cc:154-197)."""
-    from ..geometry.bvh import build_bvh
+    from ..geometry.bvh import build_bvh, morton_order
     from ..ops.curves import flatten_curves, subsegment_bounds
-    from ..ops.pallas.dense_curve import pack_segments
 
     scene = dict(scene)
     flat = flatten_curves(scene["curve_pts"])
-    packed_segs, seg_aabb, seg_order = pack_segments(flat)
-    if seg_order.size:
+    if flat["curve_p0"].shape[0]:
+        seg_order = morton_order(0.5 * (flat["curve_p0"] + flat["curve_p1"]))
         for key in ("curve_p0", "curve_p1", "curve_r0", "curve_r1",
                     "curve_seg", "curve_u0", "curve_u1"):
             flat[key] = flat[key][seg_order]
     scene.update(flat)
-    scene["dense_segs"] = packed_segs
-    scene["dense_seg_aabb"] = seg_aabb
-    # per-sub-segment fat row: tangent (unit e) + source segment id
-    e = flat["curve_p1"] - flat["curve_p0"]
-    elen = np.maximum(np.linalg.norm(e, axis=-1, keepdims=True), 1e-20)
-    scene["curve_sub_fat"] = np.concatenate(
-        [e / elen, flat["curve_seg"][:, None].astype(np.float32)],
-        axis=1).astype(np.float32) if seg_order.size else np.zeros(
-        (0, 4), np.float32)
     cmin, cmax = subsegment_bounds(flat)
     cbvh = build_bvh(cmin, cmax)
     scene["cbvh_min"] = cbvh.aabb_min
@@ -495,8 +451,7 @@ def build_fat_tables(scene: Dict) -> Dict:
     Runs INSIDE jit at render start (cheap concatenations) so the packed
     rows are functions of the differentiable leaves — gradients flow
     through the pack to the original material/light columns. One fat-row
-    gather per lane then replaces ~40 thin gathers per wavefront step
-    (TPU gathers cost per row, not per byte).
+    gather per lane then replaces ~40 thin gathers per wavefront step.
 
     face_fat [F, 26]: 0:3 ng | 3:12 corner ns | 12:18 corner uv | 18 has_ns
       | 19 has_uv | 20 mat_id | 21 light_pdf | 22:25 emission | 25 instance

@@ -4,8 +4,7 @@ Reference: /root/reference/src/texture.{h,cc} FetchFloatN with clamp
 addressing and the bilinear filter in image-utils.cc:99-167. Textures are
 stacked into one [T, Hmax, Wmax, 3] atlas (scene.build).
 
-TPU gathers cost per ROW (~140M rows/s), not per byte, so the 4-corner
-bilinear fetch is restructured: `build_quad_atlas` bakes each texel's 2x2
+The 4-corner bilinear fetch is restructured to gather once per lane: `build_quad_atlas` bakes each texel's 2x2
 clamped neighborhood into a fat [T, H, W, 12] table (inside jit, so
 texture gradients still flow to the original atlas leaf), and
 `fetch_float3_quad` does ONE 12-float gather + lerp per lane — 4x fewer

@@ -14,8 +14,8 @@ omega[0] = sin(theta) along the hair, phi = atan2(omega[2], omega[1]).
 for the throughput update (:225).
 
 The reference evaluates the transcendental-heavy lobes with scalar
-fast_math polynomials; on TPU the VPU's native transcendentals (jnp ops)
-are both faster and more accurate, so we use them directly.
+fast_math polynomials; the accelerator's native transcendentals (jnp ops)
+are accurate and vectorize, so we use them directly.
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 The reference's only progress/perf signal is a `printf("finish pass ...")`
 (/root/reference/src/render.cc:229) and the GUI progress bar
 (pc/glfw-window.cc:630-635); SURVEY.md §5 calls for profiler traces and
-per-kernel rays/s counters in the TPU build. This module provides:
+per-kernel rays/s counters. This module provides:
 
 * `measure_occupancy(scene_np, max_steps)` — mean alive-lane fraction per
   wavefront step, computed with a small jitted probe on the CPU backend
@@ -108,10 +108,8 @@ def measure_sss_truncation(scene_np, max_steps: int, k_volume: int = 0,
 
     The reference walks up to 8192 steps (random-walk-sss.h:281); walks
     this renderer truncates bias radiance down. CPU probe at `probe`^2
-    pixels, one sample; the CLI's auto-k rule thresholds this at 1%
+    pixels, one sample; the CLI's auto-k rule thresholds this at 8%
     (integrator.auto_k_volume)."""
-    import os
-
     import jax
     import jax.numpy as jnp
 
@@ -120,46 +118,38 @@ def measure_sss_truncation(scene_np, max_steps: int, k_volume: int = 0,
     from ..scene.scene import build_fat_tables, scene_to_device
 
     cpu = jax.local_devices(backend="cpu")[0]
-    prev = os.environ.get("PBRLAB_TRACE_BACKEND")
-    os.environ["PBRLAB_TRACE_BACKEND"] = "bvh"
-    try:
-        with jax.default_device(cpu):
-            scene = build_fat_tables(scene_to_device(scene_np))
+    with jax.default_device(cpu):
+        scene = build_fat_tables(scene_to_device(scene_np))
 
-            @jax.jit
-            def run(scene):
-                lane = jnp.arange(probe * probe, dtype=jnp.int32)
-                state = init_state(scene, probe, probe,
-                                   jnp.uint32(sample_id), seed, lane)
+        @jax.jit
+        def run(scene):
+            lane = jnp.arange(probe * probe, dtype=jnp.int32)
+            state = init_state(scene, probe, probe,
+                               jnp.uint32(sample_id), seed, lane)
 
-                def body(carry, _):
-                    state, started = carry
+            def body(carry, _):
+                state, started = carry
+                pre = state.mode == MODE_VOLUME
+                state = wavefront_step(scene, state, 0)
+                started += jnp.sum(
+                    (~pre & (state.mode == MODE_VOLUME)
+                     & state.alive).astype(jnp.int32))
+                for i in range(k_volume):
                     pre = state.mode == MODE_VOLUME
-                    state = wavefront_step(scene, state, 0)
-                    started += jnp.sum(
-                        (~pre & (state.mode == MODE_VOLUME)
-                         & state.alive).astype(jnp.int32))
-                    for i in range(k_volume):
-                        pre = state.mode == MODE_VOLUME
-                        state = wavefront_step(scene, state, 0,
-                                               freeze_surface=True,
-                                               resolve_pending=(i == 0))
-                    return (state, started), None
+                    state = wavefront_step(scene, state, 0,
+                                           freeze_surface=True,
+                                           resolve_pending=(i == 0))
+                return (state, started), None
 
-                (state, started), _ = jax.lax.scan(
-                    body, (state, jnp.int32(0)), None, length=max_steps)
-                truncated = jnp.sum(
-                    (state.alive
-                     & (state.mode == MODE_VOLUME)).astype(jnp.int32))
-                return truncated, started
+            (state, started), _ = jax.lax.scan(
+                body, (state, jnp.int32(0)), None, length=max_steps)
+            truncated = jnp.sum(
+                (state.alive
+                 & (state.mode == MODE_VOLUME)).astype(jnp.int32))
+            return truncated, started
 
-            truncated, started = run(scene)
-            return float(truncated) / max(float(started), 1.0)
-    finally:
-        if prev is None:
-            del os.environ["PBRLAB_TRACE_BACKEND"]
-        else:
-            os.environ["PBRLAB_TRACE_BACKEND"] = prev
+        truncated, started = run(scene)
+        return float(truncated) / max(float(started), 1.0)
 
 
 def measure_occupancy(scene_np, max_steps: int, probe: int = 128,
@@ -167,26 +157,16 @@ def measure_occupancy(scene_np, max_steps: int, probe: int = 128,
     """Sum of rays fired per pixel-sample over all steps (CPU probe
     backend; includes the x2 closest+shadow factor and k_volume substep
     rays — multiply by W*H*spp for a render's total rays)."""
-    import os
-
     import jax
     import jax.numpy as jnp
 
     from ..scene.scene import build_fat_tables, scene_to_device
 
     cpu = jax.local_devices(backend="cpu")[0]
-    prev = os.environ.get("PBRLAB_TRACE_BACKEND")
-    os.environ["PBRLAB_TRACE_BACKEND"] = "bvh"  # pallas kernels are TPU-only
-    try:
-        with jax.default_device(cpu):
-            scene = build_fat_tables(scene_to_device(scene_np))
-            units = ray_units(scene, probe, probe, max_steps, k_volume)
-            return float(jnp.sum(units))
-    finally:
-        if prev is None:
-            del os.environ["PBRLAB_TRACE_BACKEND"]
-        else:
-            os.environ["PBRLAB_TRACE_BACKEND"] = prev
+    with jax.default_device(cpu):
+        scene = build_fat_tables(scene_to_device(scene_np))
+        units = ray_units(scene, probe, probe, max_steps, k_volume)
+        return float(jnp.sum(units))
 
 
 @dataclass

@@ -3,7 +3,7 @@ through the preview server's own HTTP endpoints, keep rendering —
 produces before/after frames (VERDICT round-2 ask #7; reference behavior
 pbrlab-gui.cc:207-238 + material editor glfw-window.cc:651-980).
 
-Run: python scripts/preview_demo.py [outdir]  (CPU or TPU)
+Run: python scripts/preview_demo.py [outdir]  (CPU or GPU)
 """
 import json
 import os

@@ -2,7 +2,7 @@
 
 Each process owns 2 virtual CPU devices; jax.distributed glues them into
 one 4-device global mesh across 2 processes — the CPU stand-in for a
-multi-host TPU pod slice (SURVEY.md §5 distributed backend).
+multi-host deployment (SURVEY.md §5 distributed backend).
 """
 import os
 import sys

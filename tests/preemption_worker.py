@@ -19,9 +19,10 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("PBRLAB_JAX_CACHE",
-                                     "/tmp/pbrlab_jax_cache"))
+
+    from pbrlab_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
 
     from pbrlab_tpu.render.progressive import ProgressiveRenderer
     from pbrlab_tpu.scene.demo import build_demo_scene

@@ -50,27 +50,3 @@ def test_two_process_render_matches_single(tmp_path):
     ref = np.asarray(render(scene_to_device(scene_np), 16, 16, 2,
                             max_steps=6))
     np.testing.assert_array_equal(got, ref)
-
-
-def test_pod_efficiency_harness_smoke():
-    """scripts/pod_efficiency.py local smoke mode must run end-to-end and
-    emit the efficiency JSON (round-3 verdict Missing #5: the >=80%
-    multi-host target needs a one-command harness ready for pod time)."""
-    import json
-
-    script = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "scripts", "pod_efficiency.py")
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
-    p = subprocess.run(
-        [sys.executable, script, "--procs", "2", "--res", "32", "--spp", "2",
-         "--max-steps", "4", "--subdiv", "1", "--passes", "2",
-         "--baseline-rays", "1.0"],
-        env=env, capture_output=True, timeout=540)
-    assert p.returncode == 0, p.stdout.decode() + p.stderr.decode()
-    line = [l for l in p.stdout.decode().splitlines()
-            if l.startswith("{")][-1]
-    d = json.loads(line)
-    assert d["processes"] == 2 and d["devices"] == 4
-    assert d["mrays_per_s"] > 0
-    assert "efficiency_vs_1host" in d

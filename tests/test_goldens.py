@@ -6,8 +6,8 @@ EXACTLY — a regression that shifts the whole image a few percent passes
 every statistical oracle tolerance but fails here. Five scenes cover the
 closure/material surface: lambert, GGX, SSS (volume mode), hair, textured.
 
-Goldens are committed for the CPU backend (the suite's backend; TPU may
-differ by ulps from different fusion). Regenerate intentionally with:
+Goldens are committed for the CPU backend (the suite's backend; a GPU
+may differ by ulps from different fusion and reduction order). Regenerate intentionally with:
     PBRLAB_WRITE_GOLDENS=1 python -m pytest tests/test_goldens.py -n 0
 """
 import os

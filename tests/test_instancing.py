@@ -4,75 +4,26 @@ VERDICT round-2 Missing #2) at a fraction of the memory."""
 import numpy as np
 import pytest
 
-from pbrlab_tpu.scene.demo import icosphere, quad_mesh
+from pbrlab_tpu.scene.demo import (icosphere, instance_grid,
+                                   instanced_spheres_builders, quad_mesh)
 from pbrlab_tpu.scene.instanced import build_instanced
 from pbrlab_tpu.scene.scene import SceneBuilder, commit, scene_to_device
 
 
-def _rot_y(a):
-    c, s = np.cos(a), np.sin(a)
-    return np.asarray([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float64)
-
-
-def _transforms(k, spacing=1.2):
-    """k transforms on a grid with per-instance rotation + scale."""
-    out = []
-    side = int(np.ceil(np.sqrt(k)))
-    for i in range(k):
-        gx, gz = i % side, i // side
-        m = np.eye(4)
-        m[:3, :3] = _rot_y(0.7 * i) * (0.8 + 0.1 * (i % 3))
-        m[:3, 3] = (gx * spacing - side * spacing / 2, 0.55,
-                    gz * spacing - side * spacing / 2)
-        out.append(m)
-    return np.stack(out).astype(np.float32)
-
-
-def _builders(k):
-    """(instanced builder, baked builder) for the same k-sphere scene."""
-    def base(b):
-        m = b.materials
-        white = m.add_principled("floor", base_color=(0.7, 0.7, 0.7),
-                                 specular=0.0)
-        ball = m.add_principled("ball", base_color=(0.8, 0.4, 0.2),
-                                specular=0.0, roughness=0.4)
-        side = max(3.0, np.sqrt(k) * 1.2)
-        b.add_instance([quad_mesh([-side, 0, -side], [-side, 0, side],
-                                  [side, 0, side], [side, 0, -side], white,
-                                  "floor")])
-        lid = b.add_area_light_param((12.0, 12.0, 12.0))
-        lq = quad_mesh([-1, 4.0, -1], [1, 4.0, -1], [1, 4.0, 1],
-                       [-1, 4.0, 1], white, "light")
-        b.add_instance([lq], light_ids=[np.full((2,), lid, np.int32)])
-        return ball
-
-    ts = _transforms(k)
-    bi = SceneBuilder()
-    ball = base(bi)
-    sphere = icosphere(1, 0.45, material_id=ball, name="ball")
-    bi.add_shared_instances([sphere], ts)
-
-    bb = SceneBuilder()
-    ball_b = base(bb)
-    sphere_b = icosphere(1, 0.45, material_id=ball_b, name="ball")
-    for m in ts:
-        bb.add_instance([sphere_b], transform=m)
-    return bi, bb
-
-
 @pytest.fixture(scope="module")
 def scenes9():
-    bi, bb = _builders(9)
+    bi, bb = instanced_spheres_builders(9)
     return build_instanced(bi), commit(bb.build())
 
 
-def test_instanced_trace_matches_baked(scenes9):
-    """Closest-hit t and any-hit agreement on random rays (kernel in
-    interpret mode vs baked brute force)."""
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_instanced_trace_matches_baked(scenes9, any_hit):
+    """Closest-hit t and any-hit agreement on random rays (two-level walk
+    vs baked brute force)."""
     import jax.numpy as jnp
 
-    from pbrlab_tpu.ops.intersect import intersect_bruteforce
-    from pbrlab_tpu.ops.pallas.dense_v5i import dense_trace_v5i
+    from pbrlab_tpu.ops.intersect import (intersect_bruteforce,
+                                          intersect_instanced)
 
     si, sb = scenes9
     rng = np.random.default_rng(2)
@@ -85,11 +36,9 @@ def test_instanced_trace_matches_baked(scenes9):
     mint = np.zeros(n, np.float32)
     maxt = np.full(n, 1e18, np.float32)
 
-    ri = dense_trace_v5i(si["i5_tris"], si["i5_node_aabb"],
-                         si["i5_node_meta"], si["i5_inst_inv"],
-                         si["i5_inst_meta"], jnp.asarray(org),
-                         jnp.asarray(d), jnp.asarray(mint),
-                         jnp.asarray(maxt), interpret=True)
+    ri = intersect_instanced(scene_to_device(si), jnp.asarray(org),
+                             jnp.asarray(d), jnp.asarray(mint),
+                             jnp.asarray(maxt), any_hit=any_hit)
     rb = intersect_bruteforce(
         {k: jnp.asarray(sb[k]) for k in ("tri_v0", "tri_e1", "tri_e2")},
         jnp.asarray(org), jnp.asarray(d), jnp.asarray(mint),
@@ -100,8 +49,14 @@ def test_instanced_trace_matches_baked(scenes9):
     hit_b = np.asarray(rb["prim"]) >= 0
     assert hit_b.sum() > n // 4
     assert (hit_i != hit_b).mean() < 2e-3  # instance-boundary float edges
+    if any_hit:
+        return
     both = hit_i & hit_b
     np.testing.assert_allclose(ti[both], tb[both], rtol=2e-4, atol=2e-4)
+    # prim is the iface row: its material matches the baked face's
+    pi = np.asarray(ri["prim"])[both]
+    pb = np.asarray(rb["prim"])[both]
+    assert (si["iface_material"][pi] == sb["face_material"][pb]).mean() > 0.99
 
 
 def test_instanced_render_matches_baked(scenes9):
@@ -124,7 +79,7 @@ def test_instanced_render_matches_baked(scenes9):
 def test_instanced_memory_is_shared():
     """100 instances must NOT cost 100x the baked per-face memory
     (VERDICT done-bar: matches baked without 100x memory)."""
-    bi, bb = _builders(100)
+    bi, bb = instanced_spheres_builders(100)
     si = build_instanced(bi)
     sb = commit(bb.build())
 
@@ -145,7 +100,7 @@ def _hair_builders(k):
     triangles share the BLAS, curves bake per instance."""
     from pbrlab_tpu.io.cyhair import make_demo_hair
 
-    ts = _transforms(k, spacing=1.6)
+    ts = instance_grid(k, spacing=1.6)
 
     def base(b):
         m = b.materials
@@ -281,7 +236,7 @@ def test_json_instanced_hair(tmp_path):
     }
     (tmp_path / "scene.json").write_text(jsonlib.dumps(doc))
     scene, _cfg = load_scene_json(str(tmp_path / "scene.json"))
-    assert "i5_tris" in scene, "expected the shared-BLAS instanced path"
+    assert "tlas_skip" in scene, "expected the shared-BLAS instanced path"
     assert scene["curve_pts"].shape[0] > 0
     # three tufts -> three distinct curve instance ids
     assert len(np.unique(scene["curve_instance"])) == 3

@@ -1,6 +1,7 @@
 """BVH correctness vs brute-force intersection (SURVEY.md §4 strategy)."""
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from pbrlab_tpu.core.math import INF
 from pbrlab_tpu.ops.intersect import (intersect_bruteforce, intersect_bvh,
@@ -71,52 +72,128 @@ def test_inside_box_hits(demo_scene):
     assert (np.asarray(res["prim"]) >= 0).all()
 
 
-def test_dense5s_dispatch_wiring(monkeypatch):
-    """trace_scene/occluded_scene must route through the v5s subtree
-    scheduler when the scene carries a subtree cut (large-scene default)
-    and agree with brute force (interpret mode)."""
-    import jax.numpy as jnp
-    import numpy as np
+# ---- the XLA trace path on scenes of every shape -------------------------
+# (closest hit vs brute force, any-hit vs closest, max_t / dead lanes, and
+# lane-permutation invariance) x (demo, irregular mesh, no triangles)
 
-    from pbrlab_tpu.ops.intersect import (intersect_bruteforce,
-                                          occluded_scene, trace_scene)
-    from pbrlab_tpu.ops.pallas.dense_v5 import leaf_major, subtree_cut
-    from pbrlab_tpu.scene.demo import build_demo_scene
-    from pbrlab_tpu.scene.scene import scene_to_device
 
-    scene_np, _ = build_demo_scene(subdiv=1)
-    scene_np = dict(scene_np)
-    scene_np["dense_tris_v5l"] = leaf_major(
-        np.asarray(scene_np["dense_tris_v4"]))
-    roots, aabb = subtree_cut(np.asarray(scene_np["v5_node_aabb"]),
-                              np.asarray(scene_np["v5_node_meta"]),
-                              max_nodes=8)
-    scene_np["v5s_roots"] = roots
-    scene_np["v5s_aabb"] = aabb
-    scene = scene_to_device(scene_np)
-    monkeypatch.setenv("PBRLAB_TRACE_BACKEND", "dense5s")
+def _hair_only_scene():
+    from pbrlab_tpu.io.cyhair import make_demo_hair
+    from pbrlab_tpu.scene.scene import SceneBuilder, commit
 
-    rng = np.random.default_rng(3)
+    b = SceneBuilder()
+    hair = make_demo_hair(num_strands=24, base=(0.0, 1.0, 0.0))
+    hair.material_id = b.materials.add_hair("hair")
+    b.add_instance([], curves=[hair])
+    return commit(b.build())
+
+
+_SCENES = {}
+
+
+def _scene(kind):
+    if kind not in _SCENES:
+        from pbrlab_tpu.scene.demo import build_demo_scene
+        from pbrlab_tpu.scene.scene import scene_to_device
+
+        if kind == "demo":
+            scene_np = build_demo_scene(subdiv=1)[0]
+        elif kind == "irregular":
+            scene_np = build_demo_scene(subdiv=1, irregular=True)[0]
+        else:  # triangles absent: hair only
+            scene_np = _hair_only_scene()
+        _SCENES[kind] = scene_to_device(scene_np)
+    return _SCENES[kind]
+
+
+def _check_closest(scene, org, d, mn, mx, rng):
+    ref = intersect_bruteforce(scene, org, d, mn, mx)
+    got = intersect_bvh(scene, org, d, mn, mx)
+    hit = np.asarray(ref["prim"]) >= 0
+    np.testing.assert_array_equal(hit, np.asarray(got["prim"]) >= 0)
+    np.testing.assert_allclose(np.asarray(got["t"])[hit],
+                               np.asarray(ref["t"])[hit], rtol=1e-4)
+    if hit.any():
+        same = np.asarray(ref["prim"]) == np.asarray(got["prim"])
+        assert same[hit].mean() > 0.99
+
+
+def _check_any_hit(scene, org, d, mn, mx, rng):
+    from pbrlab_tpu.ops.intersect import occluded_scene
+
+    ref = intersect_bruteforce(scene, org, d, mn, mx)
+    t_ref = np.asarray(ref["t"])
+    hit = np.asarray(ref["prim"]) >= 0
+    lim = 1.5
+    occ = np.asarray(occluded_bvh(scene, org, d, mn,
+                                  jnp.full(mn.shape, lim, jnp.float32)))
+    off_band = ~hit | (np.abs(t_ref - lim) > 1e-3)
+    np.testing.assert_array_equal(occ[off_band],
+                                  (hit & (t_ref <= lim))[off_band])
+    if scene["curve_pts"].shape[0] == 0:  # dispatch: same query
+        np.testing.assert_array_equal(
+            occ, np.asarray(occluded_scene(
+                scene, org, d, mn, jnp.full(mn.shape, lim, jnp.float32))))
+
+
+def _check_max_t_dead(scene, org, d, mn, mx, rng):
+    full = intersect_bvh(scene, org, d, mn, mx)
+    t = np.asarray(full["t"])
+    hit = np.asarray(full["prim"]) >= 0
+    lim = np.where(hit, t * 0.5, 1.0).astype(np.float32)
+    lim[::3] = -1.0  # dead lanes never traverse
+    got = np.asarray(intersect_bvh(scene, org, d, mn,
+                                   jnp.asarray(lim))["prim"])
+    assert (got[hit] == -1).all()
+    assert (got[::3] == -1).all()
+
+
+def _check_permutation(scene, org, d, mn, mx, rng):
+    perm = rng.permutation(org.shape[0])
+    base = intersect_bvh(scene, org, d, mn, mx)
+    shuf = intersect_bvh(scene, org[perm], d[perm], mn[perm], mx[perm])
+    for k in ("t", "u", "v", "prim"):
+        np.testing.assert_array_equal(np.asarray(base[k])[perm],
+                                      np.asarray(shuf[k]))
+
+
+_CHECKS = {"closest": _check_closest, "any_hit": _check_any_hit,
+           "max_t_dead": _check_max_t_dead,
+           "permutation": _check_permutation}
+
+
+@pytest.mark.parametrize("kind", ["demo", "irregular", "no_triangles"])
+@pytest.mark.parametrize("check", sorted(_CHECKS))
+def test_trace_xla(check, kind, rng_np):
+    scene = _scene(kind)
+    org, d, mn, mx = _random_rays(scene, 512, rng_np)
+    _CHECKS[check](scene, org, d, mn, mx, rng_np)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_curve_trace_matches_bruteforce(any_hit, rng_np):
+    """Hair: the curve-BVH walk vs every sub-segment."""
+    from pbrlab_tpu.ops.curves import curve_trace, curve_trace_bruteforce
+
+    scene = _scene("no_triangles")
     n = 1024
-    lo, hi = scene_np["aabb_min"], scene_np["aabb_max"]
-    org = jnp.asarray(lo + (hi - lo) * rng.random((n, 3)), jnp.float32)
-    d = rng.normal(size=(n, 3))
+    org = jnp.asarray(rng_np.normal(0, 0.3, (n, 3)) + [0, 1.2, 0],
+                      jnp.float32)
+    d = rng_np.normal(size=(n, 3))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     d = jnp.asarray(d, jnp.float32)
     mn = jnp.zeros((n,), jnp.float32)
-    mx = jnp.full((n,), 1e18, jnp.float32)
-    got = trace_scene(scene, org, d, mn, mx)
-    ref = intersect_bruteforce(scene, org, d, mn, mx)
-    hit_ref = np.asarray(ref["prim"]) >= 0
-    np.testing.assert_array_equal(hit_ref, np.asarray(got["prim"]) >= 0)
-    np.testing.assert_allclose(np.asarray(got["t"])[hit_ref],
-                               np.asarray(ref["t"])[hit_ref], rtol=1e-3)
-    occ = np.asarray(occluded_scene(scene, org, d, mn,
-                                    jnp.full((n,), 0.5, jnp.float32)))
-    # occlusion within 0.5 == closest hit within 0.5 (away from the
-    # boundary, where kernel epsilon conventions legitimately differ)
-    t_ref = np.asarray(ref["t"])
-    off_boundary = ~hit_ref | (np.abs(t_ref - 0.5) > 1e-3)
-    closest_within = hit_ref & (t_ref <= 0.5)
-    np.testing.assert_array_equal(occ[off_boundary],
-                                  closest_within[off_boundary])
+    mx = jnp.full((n,), INF, jnp.float32)
+    ref = curve_trace_bruteforce(scene, org, d, mn, mx)
+    got = curve_trace(scene, org, d, mn, mx, any_hit=any_hit)
+    hit = np.asarray(ref["seg"]) >= 0
+    assert hit.sum() > 20
+    np.testing.assert_array_equal(hit, np.asarray(got["seg"]) >= 0)
+    if any_hit:
+        return
+    np.testing.assert_allclose(np.asarray(got["t"])[hit],
+                               np.asarray(ref["t"])[hit], rtol=1e-4)
+    same = np.asarray(got["seg"]) == np.asarray(ref["seg"])
+    assert same[hit].mean() > 0.99
+    np.testing.assert_allclose(np.asarray(got["v"])[hit & same],
+                               np.asarray(ref["v"])[hit & same], atol=1e-4)

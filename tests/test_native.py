@@ -3,6 +3,7 @@ import numpy as np
 import pytest
 
 from pbrlab_tpu.geometry.bvh import build_bvh
+from pbrlab_tpu.geometry.bvh import morton_order as morton_order_np
 from pbrlab_tpu.geometry.native import _lib, build_bvh_native, morton_order
 
 
@@ -16,21 +17,7 @@ def _random_boxes(n, rng):
 def test_native_morton_matches_numpy(rng_np):
     pts = rng_np.random((5000, 3)).astype(np.float32)
     got = morton_order(pts)
-    # numpy reference (same quantization), from dense.pack_triangles
-    lo = pts.min(axis=0)
-    ext = np.maximum(pts.max(axis=0) - lo, 1e-12)
-    q = np.clip(((pts - lo) / ext * 1023.0).astype(np.uint64), 0, 1023)
-
-    def spread(x):
-        x = (x | (x << 16)) & np.uint64(0x30000FF)
-        x = (x | (x << 8)) & np.uint64(0x300F00F)
-        x = (x | (x << 4)) & np.uint64(0x30C30C3)
-        x = (x | (x << 2)) & np.uint64(0x9249249)
-        return x
-
-    keys = spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1)) \
-        | (spread(q[:, 2]) << np.uint64(2))
-    ref = np.argsort(keys, kind="stable")
+    ref = morton_order_np(pts)  # numpy reference (geometry.bvh)
     np.testing.assert_array_equal(got, ref)
 
 

@@ -95,11 +95,12 @@ def test_json_shared_instances(tmp_path):
     jpath = tmp_path / "scene.json"
     jpath.write_text(json.dumps(desc))
     scene, _ = load_scene_json(str(jpath))
-    assert "i5_tris" in scene, "shared instances must use the TLAS/BLAS path"
-    assert scene["i5_inst_meta"].shape[1] == 4  # 3 blocks + 1 lamp
-    # the three block instances share ONE BLAS: the packed table holds
-    # only two local scenes' slots
-    assert scene["i5_tris"].shape[1] == 2 * 32
+    assert "tlas_skip" in scene, "shared instances must use the TLAS/BLAS path"
+    assert scene["inst_meta"].shape == (4, 3)  # 3 blocks + 1 lamp
+    # the three block instances share ONE BLAS: the local triangle table
+    # holds only the two local scenes' faces
+    assert scene["blas_v0"].shape == (2, 3)
+    assert len(np.unique(scene["inst_meta"][:3, 0])) == 1
     assert scene["emissive_faces"].shape[0] == 1
     from pbrlab_tpu.render.integrator import render_sample
     from pbrlab_tpu.scene.scene import scene_to_device

@@ -109,3 +109,75 @@ def test_fetch_float_n_rgba():
     np.testing.assert_allclose(
         np.asarray(fetch_float3(atlas, sizes, tid, u, v)), want[:, :3],
         rtol=1e-5, atol=1e-6)
+
+
+def _decode_png(data):
+    """Minimal decoder for the unfiltered 8-bit PNGs io.image writes."""
+    import struct
+    import zlib
+
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(tag + body) & 0xFFFFFFFF, tag
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color_type = ihdr[:4]
+    assert depth == 8
+    c = {0: 1, 2: 3, 6: 4}[color_type]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + w * c)
+    assert (rows[:, 0] == 0).all()  # filter type None on every scanline
+    return rows[:, 1:].reshape(h, w, c)
+
+
+def test_png_roundtrip(tmp_path):
+    """write_png (stdlib zlib/struct) -> decode -> the x256-clamp bytes."""
+    from pbrlab_tpu.io.image import encode_png, write_png
+
+    g = np.random.default_rng(0)
+    img = g.random((5, 7, 3)).astype(np.float32) * 1.2  # some clip at 255
+    path = tmp_path / "x.png"
+    write_png(str(path), img)
+    got = _decode_png(path.read_bytes())
+    want = np.clip(img * 256.0, 0.0, 255.0).astype(np.uint8)
+    np.testing.assert_array_equal(got, want)
+    rgba = g.integers(0, 256, (3, 4, 4), dtype=np.uint8)
+    np.testing.assert_array_equal(_decode_png(encode_png(rgba)), rgba)
+
+
+def test_compile_cache_honours_env(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR set: the helper returns it, sets nothing."""
+    import jax
+
+    from pbrlab_tpu.utils.compile_cache import configure_compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert configure_compile_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_default_in_checkout(monkeypatch):
+    """Unset: a fixed .jax_cache directory in the checkout."""
+    import os
+
+    import jax
+
+    from pbrlab_tpu.utils.compile_cache import configure_compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    try:
+        path = configure_compile_cache()
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert path == os.path.join(root, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
